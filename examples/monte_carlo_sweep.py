@@ -1,4 +1,4 @@
-"""TPU-native Monte-Carlo sweep (no reference counterpart): thousands of
+"""Monte-Carlo sweep (no reference counterpart): thousands of
 randomized scenes as one sharded XLA graph, with checkpoint/resume.
 
 On a multi-chip host the scene axis shards across the mesh; on one chip (or

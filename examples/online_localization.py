@@ -1,8 +1,7 @@
 """Online localization: stream audio blocks through StreamingLocalizer.
 
 Simulates a microphone-array capture and feeds it block-by-block, as an
-audio callback would — one jitted step per 64 ms hop (~19x real-time on a
-TPU v5e including host round trips).
+audio callback would — one jitted step per 64 ms hop.
 """
 
 import jax

@@ -1,6 +1,6 @@
-"""pyaudiolocalization_tpu — TPU-native sound-source localization.
+"""pyaudiolocalization_tpu — sound-source localization in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of PyAudioLocalization's capabilities
+A from-scratch JAX/XLA rebuild of PyAudioLocalization's capabilities
 (see SURVEY.md for the reference analysis and README.md for the design).
 The reference's public API is preserved at this top level.
 """

@@ -9,7 +9,7 @@ module collapses all of those surfaces into one:
     delays, corr, lags = utils.get_time_delays_phat(s1, s2, fs)
 
 Inputs/outputs are NumPy (converted at the boundary); the math runs on the
-jitted TPU ops.  Functions default to reference-exact semantics including
+jitted device ops.  Functions default to reference-exact semantics including
 the documented defects (SURVEY.md Q1-Q5) — e.g. ``get_time_delays_phat``
 uses the reference's scipy-'full' lag mapping.  The reference never seeds
 its global NumPy RNG; stochastic functions here take their randomness from a

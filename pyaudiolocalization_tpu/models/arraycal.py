@@ -9,7 +9,7 @@ weighted pair-TDOA residual system the localizer uses (utils.py:384-405
 semantics, roles of source and microphones swapped) for the M microphone
 positions.
 
-TPU-first design: the whole refinement is ONE jitted ``lax.scan`` — each
+Design: the whole refinement is ONE jitted ``lax.scan`` — each
 sweep updates every microphone simultaneously (Jacobi block-coordinate
 Gauss-Newton; the per-mic 3x3 normal equations go through the same
 closed-form Cramer solve as the localizer's LM) with a shared

@@ -14,7 +14,7 @@ emitter plus its sidelobe skirt, the Capon map keeps a distinct peak at a
 unlike MUSIC it needs no source-count estimate (no subspace split) — the
 better default when ``num_sources`` is unknown.
 
-TPU-first shape (same toolbox as the siblings):
+Shape (same toolbox as the siblings):
 
   * snapshot covariances and steering stay in the REAL 2Mx2M embedding
     (models/music.py helpers) — inverses embed the complex inverses, and

@@ -6,7 +6,7 @@ Counterpart of the reference's solver stack: the residual system
 (utils.py:384-405), hyperbola-midpoint initial guesses + clustering
 (utils.py:304-362), extended bounds (utils.py:364-382), the scipy
 least_squares restart loop (main.py:261-274) and the differential_evolution
-fallback (main.py:281-292).  TPU-first design: restarts are a vmapped LM
+fallback (main.py:281-292).  Design: restarts are a vmapped LM
 with a static iteration count; DE is a resident (pop, 3) population evolved
 under lax.scan — no per-candidate host round trips.
 
@@ -228,8 +228,8 @@ class LMResult(NamedTuple):
 def _solve3(a_mat: jnp.ndarray, rhs: jnp.ndarray) -> jnp.ndarray:
     """Closed-form 3x3 solve (Cramer via cofactors), fully elementwise.
 
-    ``jnp.linalg.solve`` lowers batched tiny LU factorizations poorly on TPU
-    (measured 3x slower than this for the LM step); the damped JtJ here is
+    Replaces ``jnp.linalg.solve``'s batched tiny LU factorizations with
+    elementwise arithmetic that fuses into the LM step; the damped JtJ is
     well-conditioned by construction (diagonal floor in lm_solve), so
     Cramer in f32 matches LU to ~2e-7."""
     a, b, c = a_mat[..., 0, 0], a_mat[..., 0, 1], a_mat[..., 0, 2]

@@ -8,7 +8,7 @@ sum each pair's whitened correlation at that position's expected lag
 
 and take the argmax.  No initialization, no convergence failures, and
 naturally robust to multipath/outlier pairs (a bad pair adds noise to the
-map instead of biasing a solver).  TPU-first shape: the whole grid
+map instead of biasing a solver).  Shape: the whole grid
 evaluates as one gather + reduction; scenes/pairs batch with vmap; a second
 fine stage re-grids around the coarse peak, then an optional quadratic
 refinement interpolates sub-cell.
@@ -160,12 +160,10 @@ def srp_map(corr: jnp.ndarray, points: jnp.ndarray, mic_positions: jnp.ndarray,
     physically possible |tau|*fs is at most the pair mic distance over c),
     the interpolation runs GATHER-FREE: the correlation is sliced to the
     centered +-max_lag window and each value is a hat-kernel weighted
-    reduction over the window.  XLA fuses the broadcast-reduce, measured
-    ~50x faster than the runtime-index gather on TPU (gathers cost ~25 ns
-    per element; with compile-time-constant grids XLA folds them, which is
-    why this only shows up when mic positions are traced — e.g. the sweep's
-    jittered arrays).  Without ``max_lag`` the exact-equivalent circular
-    gather path runs.
+    reduction over the window, which XLA fuses — no runtime-index gather
+    even when mic positions are traced (e.g. the sweep's jittered arrays;
+    with compile-time-constant grids XLA folds the gather anyway).  Without
+    ``max_lag`` the exact-equivalent circular gather path runs.
     """
     nfft = corr.shape[-1]
     if max_lag is not None and max_lag < 1:

@@ -25,7 +25,7 @@ import numpy as np
 from ..ops import gccphat
 from ..ops import peaks as peaks_ops
 from ..ops.quantile import median_nonneg
-from ..ops.fftutils import rfft_n, irfft_n, rfft_pack2, irfft_pack2
+from ..ops.fftutils import rfft_n, irfft_n
 
 
 class TdoaResult(NamedTuple):
@@ -185,74 +185,6 @@ def time_delays_from_corr(corr: jnp.ndarray,
     return TdoaResult(delays, valid, corr, time_lags)
 
 
-def tdoa_single_from_window(win: jnp.ndarray, stats: jnp.ndarray, wq: int,
-                            nfft: int, fs: float,
-                            max_expected_delay: float,
-                            threshold_multiplier: float = 1.0
-                            ) -> jnp.ndarray:
-    """Single-peak physical-lag TDOA from a lag-centered correlation window
-    plus global statistics (ops/pallas_fft.bfly_gcc_windowed outputs).
-
-    Matches ``time_delays_from_corr(num_peaks=1,
-    threshold_method='gaussian', lag_mode='physical',
-    max_expected_delay=...)`` whenever the winning peak lies inside the
-    window, which the window is sized to guarantee (it covers the
-    max_expected_delay gate plus the fast path's dilation margin).  For a
-    single peak the full ladder collapses: the candidate is the tallest
-    in-window strict local maximum above the Gaussian-estimated median
-    threshold that is not dominated by a taller local maximum within the
-    1 ms peak-spacing ``distance`` (the window's dilation margin makes
-    those neighbors visible); with the alt threshold mean|corr| AT OR
-    ABOVE the primary (requires threshold_multiplier <= 1/0.84535), the
-    alt rung can never rescue a row the primary rejected, so the only
-    fallback is the global argmax (utils.py:157-172 semantics).  Returns
-    peak-lag delays in seconds, shape win.shape[:-1] (same sign
-    convention as TdoaResult.delays: td = -delay).
-
-    Residual divergence from ``time_delays_from_corr``: suppression
-    CHAINS are approximated — a candidate dominated by a taller neighbor
-    is dropped here even when that neighbor is itself suppressed by a
-    still-taller third peak (the full ladder would then keep the
-    candidate).  Requires ever-taller peaks spaced within 1 ms of each
-    other; pathological for whitened correlations.
-    """
-    if threshold_multiplier > 1.0 / 0.84535:
-        raise ValueError(
-            "tdoa_single_from_window requires threshold_multiplier <= "
-            "1/0.84535: larger multipliers put the primary threshold above "
-            "the alt mean-|corr| rung, which this collapsed ladder omits — "
-            "use time_delays_from_corr for those")
-    length = win.shape[-1]
-    center = wq * 128
-    lags = jnp.arange(length, dtype=win.dtype) - center
-    thr = 0.84535 * threshold_multiplier * stats[..., 0:1]
-    lm = peaks_ops.local_maxima(win)
-    inwin = jnp.abs(lags) <= max_expected_delay * fs
-    # 1 ms peak-spacing suppression (utils.py:151 distance semantics): a
-    # candidate loses to any strictly taller local maximum within
-    # ±distance samples.  One max-dilation over the local-max heights —
-    # a candidate survives iff it IS the tallest local max in its own
-    # neighborhood (self is included, so equality means undominated).
-    distance = max(int(fs * 0.001), 1)
-    heights = jnp.where(lm, win, -jnp.inf)
-    dil = jax.lax.reduce_window(
-        heights, -jnp.inf, jax.lax.max,
-        window_dimensions=(1,) * (win.ndim - 1) + (2 * distance + 1,),
-        window_strides=(1,) * win.ndim,
-        padding="SAME")
-    cand = lm & inwin & (win >= thr) & (win >= dil)
-    neg = jnp.asarray(-jnp.inf, win.dtype)
-    best = jnp.argmax(jnp.where(cand, win, neg), axis=-1)
-    has = jnp.any(cand, axis=-1)
-    peak_lag = jnp.take(lags, best)
-    # Global-argmax fallback: decode the natural index circularly.  The
-    # boundary bin nfft//2 maps to lag -nfft//2 (the full ladder centers
-    # with roll(n//2) and lags = arange(n) - n//2), hence >=.
-    gidx = stats[..., 2]
-    glag = jnp.where(gidx >= nfft // 2, gidx - nfft, gidx)
-    return jnp.where(has, peak_lag, glag) / fs
-
-
 def get_time_delays_phat(sig1: jnp.ndarray, sig2: jnp.ndarray, fs: float,
                          num_peaks: int = 1,
                          threshold_method: str = "median",
@@ -322,33 +254,16 @@ def bootstrap_significance(sig1: jnp.ndarray, sig2: jnp.ndarray,
     (tests/test_bootstrap_noise.py; a full-band phase surrogate, which
     ignores the zero-padding DOF structure, measured 12% low and was
     rejected).  Each draw therefore synthesizes a fresh length-n noise
-    row — in-kernel on TPU (no permutation sort, no HBM row traffic) —
-    and runs the same fwd/whiten/inverse/max pipeline.  The draw stream
-    is deterministic per key but backend-specific (hardware PRNG in the
-    kernel vs jax.random on the fallback), like the simulator's in-kernel
-    measurement noise.  Parity callers keep 'permutation'.
+    row with ``jax.random`` (no permutation sort) and runs the same
+    fwd/whiten/inverse/max pipeline.  Parity callers keep 'permutation'.
     """
-    n1, n2 = sig1.shape[-1], sig2.shape[-1]
-    n = nfft if nfft is not None else n1 + n2 - 1
-    from ..ops import pallas_fft
+    n2 = sig2.shape[-1]
+    n = nfft if nfft is not None else sig1.shape[-1] + n2 - 1
     if bootstrap_mode == "noise":
-        peaks = _noise_null_peaks(sig1, sig2, key, num_bootstrap, n,
-                                  pallas_fft)
+        peaks = _noise_null_peaks(sig1, sig2, key, num_bootstrap, n)
         return jnp.percentile(peaks, 100.0 * (1.0 - alpha))
-    # The kernel path has no truncation mode: signals longer than the
-    # requested transform (nfft < len) must take the XLA path, whose
-    # rfft_n truncates like the reference's np.fft semantics.
-    use_bfly = (n1 <= n and n2 <= n
-                and pallas_fft.bfly_bootstrap_eligible(n, sig1.dtype))
-    if use_bfly:
-        # Fused TPU path: sig1's butterfly spectrum once, then each chunk
-        # of shuffled rows -> fwd -> whiten -> packed inverse -> scalar
-        # maxima, all VMEM-resident (see pallas_fft._bfly_boot_kernel).
-        pad1 = jnp.pad(sig1, (0, n - n1)) if n1 < n else sig1
-        s1r, s1i = pallas_fft.bfly_fft_real(pad1[None])
-        s1_planes = (s1r[0], s1i[0])
-    else:
-        s1 = rfft_n(sig1, n)
+    # rfft_n truncates signals longer than n, like the reference's np.fft.
+    s1 = rfft_n(sig1, n)
 
     def resample(k):
         if bootstrap_mode == "permutation":
@@ -366,16 +281,8 @@ def bootstrap_significance(sig1: jnp.ndarray, sig2: jnp.ndarray,
                          "'block', 'circular' or 'noise'.")
 
     def chunk_peaks(ks):
-        # Whole chunk as one batch so the packed-pair transforms apply
-        # (two rows per complex FFT — see fftutils.rfft_pack2).
         shuf = jax.vmap(resample)(ks)                        # (chunk, n2)
-        if use_bfly:
-            return pallas_fft.bfly_bootstrap_peaks(
-                s1_planes, shuf, eps=gccphat.PHAT_EPS)
-        s2 = rfft_pack2(shuf, n)      # falls back to Bluestein for non-pow2
-        r = s1[None, :] * jnp.conj(s2)
-        r = r / (jnp.abs(r) + gccphat.PHAT_EPS)
-        return jnp.max(irfft_pack2(r, n), axis=-1)
+        return _null_peaks(s1, shuf, n)
 
     num_chunks = -(-num_bootstrap // chunk)
     keys = jax.random.split(key, num_chunks * chunk).reshape(num_chunks, chunk, -1)
@@ -383,31 +290,27 @@ def bootstrap_significance(sig1: jnp.ndarray, sig2: jnp.ndarray,
     return jnp.percentile(peaks, 100.0 * (1.0 - alpha))
 
 
-def _noise_null_peaks(sig1, sig2, key, num_bootstrap, n, pallas_fft):
+def _null_peaks(s1: jnp.ndarray, rows: jnp.ndarray, n: int) -> jnp.ndarray:
+    """Peak of the PHAT correlation between the fixed spectrum ``s1``
+    (rfft_n(sig1, n)) and each row of ``rows`` (chunk, len): the bootstrap
+    null statistic max(irfft(W / (|W| + eps))), W = s1 * conj(rfft(row))."""
+    r = s1[None, :] * jnp.conj(rfft_n(rows, n))
+    r = r / (jnp.abs(r) + gccphat.PHAT_EPS)
+    return jnp.max(irfft_n(r, n), axis=-1)
+
+
+def _noise_null_peaks(sig1, sig2, key, num_bootstrap, n):
     """Peak maxima of PHAT correlations between sig1 and fresh length-n2
     noise rows (see bootstrap_mode='noise').  sig2 enters only through its
     LENGTH (the null's degrees of freedom — the Dirichlet bin covariance
     of an n2-of-n padded window); PHAT cancels its spectrum anyway."""
     n2_len = sig2.shape[-1]
-    if pallas_fft.bfly_bootstrap_eligible(n, sig1.dtype) \
-            and sig1.shape[-1] <= n:
-        ks = jax.random.split(key, num_bootstrap)
-        seed_words = ks if isinstance(ks, jax.Array) and ks.ndim == 2 \
-            else jax.random.key_data(ks)
-        pad1 = jnp.pad(sig1, (0, n - sig1.shape[-1]))
-        s1r, s1i = pallas_fft.bfly_fft_real(pad1[None])
-        return pallas_fft.bfly_noise_bootstrap_peaks(
-            (s1r[0], s1i[0]), seed_words.astype(jnp.int32), n2_len,
-            eps=gccphat.PHAT_EPS)
     s1 = rfft_n(sig1, n)
 
     def chunk_peaks(ks):
         rows = jax.vmap(lambda k: jax.random.uniform(
             k, (n2_len,), sig1.dtype, -0.5, 0.5))(ks)
-        s2 = rfft_pack2(rows, n)
-        r = s1[None, :] * jnp.conj(s2)
-        r = r / (jnp.abs(r) + gccphat.PHAT_EPS)
-        return jnp.max(irfft_pack2(r, n), axis=-1)
+        return _null_peaks(s1, rows, n)
 
     chunk = 64
     num_chunks = -(-num_bootstrap // chunk)

@@ -1,6 +1,6 @@
 """Fractional (sub-sample) delays via frequency-domain phase ramps.
 
-TPU-native counterpart of ``fractional_delay`` (reference:
+Counterpart of ``fractional_delay`` (reference:
 signal_processing.py:66-80), which FFTs to 2N, multiplies a linear phase
 ramp, inverse transforms and applies ~1% linear fade-in/out ramps.  We use
 rfft/irfft (identical result for real inputs — the phase ramp is Hermitian)
@@ -19,7 +19,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .fftutils import next_pow2, rfft_n, irfft_n, irfft_pack2
+from .fftutils import next_pow2, rfft_n, irfft_n
 
 
 def fade_window(num_samples: int, fraction: float = 0.01, dtype=None):
@@ -74,15 +74,14 @@ def delay_and_sum(base: jnp.ndarray,
     base:   (N,) real base signal (already padded to the full render length).
     delays: (M, P) seconds.
     gains:  (M, P) linear amplitude per path (0 to disable a path).
-    pad_mode: 'exact' uses the reference's 2N transform length (Bluestein on
-    TPU when 2N is not a power of two); 'pow2' uses next_pow2(2N) — alias-free
-    for any delay < N samples, like 'exact', but at a fast power-of-two
-    length; 'pow2-circular' uses next_pow2(N), which is ~2x cheaper again but
-    wraps circularly: the CALLER must guarantee max(delays)*fs fits within
-    next_pow2(N) - support (the sweep's render_scene qualifies because its N
-    already includes the max path-delay budget).  Only the periodic-sinc
-    interpolation tails differ from the reference's 2N transform (~1e-3
-    waveform level).
+    pad_mode: 'exact' uses the reference's 2N transform length; 'pow2'
+    uses next_pow2(2N) — alias-free for any delay < N samples, like
+    'exact', but at a power-of-two length; 'pow2-circular' uses
+    next_pow2(N), which is ~2x cheaper again but wraps circularly: the
+    CALLER must guarantee max(delays)*fs fits within next_pow2(N) - support
+    (the sweep's render_scene qualifies because its N already includes the
+    max path-delay budget).  Only the periodic-sinc interpolation tails
+    differ from the reference's 2N transform (~1e-3 waveform level).
     returns (M, N).
 
     ``freq_slopes`` (M, P), optional, enables frequency-dependent per-path
@@ -96,8 +95,7 @@ def delay_and_sum(base: jnp.ndarray,
     absorbed" limit and is f32-FTZ-safe; no overflow is possible).  For
     other references the exponent is clamped to an exp-safe value so that
     dead paths (gain 0, finite slope — the simulator keeps rejected paths'
-    slopes) stay exactly 0 instead of 0 * inf = NaN.  Takes the XLA path
-    (the fused Pallas render synthesizes scalar-gain ramps only).
+    slopes) stay exactly 0 instead of 0 * inf = NaN.
     """
     n = base.shape[-1]
     if pad_mode == "exact":
@@ -110,15 +108,6 @@ def delay_and_sum(base: jnp.ndarray,
         raise ValueError(
             f"pad_mode must be 'exact', 'pow2' or 'pow2-circular', got "
             f"{pad_mode!r}")
-    from . import pallas_fft
-    if freq_slopes is None and pallas_fft.bfly_render_eligible(
-            padded, delays.shape[-2], delays.shape[-1], base.dtype):
-        # Fused VMEM-resident render (TPU, f32, pow2 lengths): one forward
-        # FFT per scene, per-mic ramps synthesized on-chip, truncated
-        # writeback — the (M, P, F) ramp tensor never reaches HBM.
-        fade = fade_window(n, dtype=base.dtype) if apply_fade else None
-        return pallas_fft.bfly_delay_sum(base, delays, gains, fs, padded,
-                                         n, fade=fade)
     spec = rfft_n(base, padded)                              # (F,)
     ramps = _phase_ramp(padded, delays.astype(base.dtype), fs)  # (M, P, F)
     if freq_slopes is None:
@@ -139,9 +128,7 @@ def delay_and_sum(base: jnp.ndarray,
                   * jnp.exp(jnp.minimum(arg, max_arg)))
         mixed = jnp.einsum("mpf,mpf->mf", shaped.astype(ramps.real.dtype),
                            ramps) * spec
-    # Packed-pair inverse (2 channels per c2c FFT); ineligible shapes and
-    # lengths fall back to the safe transform internally.
-    out = irfft_pack2(mixed, padded)[..., :n].astype(base.dtype)
+    out = irfft_n(mixed, padded)[..., :n].astype(base.dtype)
     if apply_fade:
         out = out * fade_window(n, dtype=base.dtype)[None, :]
     return out

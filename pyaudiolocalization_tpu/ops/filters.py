@@ -1,4 +1,4 @@
-"""IIR/FIR noise-reduction filters, TPU-native.
+"""IIR/FIR noise-reduction filters on the device.
 
 Counterpart of ``noise_reduction`` (reference: signal_processing.py:109-138),
 which uses scipy's butter+filtfilt, firwin+filtfilt, and wiener.  Design
@@ -8,8 +8,8 @@ jitted graph); the filtering itself runs on device:
   * IIR ``lfilter`` is a linear state-space recurrence
     ``z[t] = M z[t-1] + k x[t]``; we evaluate it either with a sequential
     ``lax.scan`` or (default) a parallel prefix ``lax.associative_scan`` —
-    O(T log T) 10x10 matrix products that XLA maps onto the VPU/MXU instead
-    of an un-parallelizable time loop.
+    O(T log T) 10x10 matrix products that run in parallel instead of an
+    un-parallelizable time loop.
   * ``filtfilt`` reproduces scipy's default odd-extension padding and
     steady-state initial conditions (Gustafsson is not used by the
     reference), so results match the SciPy oracle to fp tolerance.
@@ -30,7 +30,6 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from .fftutils import rfft_pack2, irfft_pack2
 
 
 # ---------------------------------------------------------------------------
@@ -192,7 +191,7 @@ def lfilter(b, a, x: jnp.ndarray, zi: jnp.ndarray | None = None,
 
     ``b``/``a`` are static coefficient sequences; ``zi`` (optional) has shape
     ``x.shape[:-1] + (max(len(a), len(b)) - 1,)``.  ``method``:
-      * 'prefix' — parallel prefix over (M, k*x_t) pairs (TPU-friendly);
+      * 'prefix' — parallel prefix over (M, k*x_t) pairs;
       * 'scan'   — sequential lax.scan (reference semantics, low memory).
     """
     b = tuple(np.atleast_1d(b).tolist())
@@ -274,17 +273,15 @@ def _conv_valid(x: jnp.ndarray, kernel: jnp.ndarray) -> jnp.ndarray:
     """'valid' correlation of x with kernel along the last axis, batched.
 
     Large kernels go through the FFT (overlap-free, one padded transform):
-    XLA's TPU convolution with a single feature channel both compiles
-    pathologically slowly (minutes for ~2k taps) and runs an order of
-    magnitude slower than the rfft route."""
+    O(n log n) instead of the direct convolution's O(n * k) for the
+    thousands-of-taps impulse responses filtfilt_sos_conv builds."""
     n = x.shape[-1]
     k = kernel.shape[0]
     if k >= 256:
         nfft = 1 << (n - 1).bit_length()
-        # Packed-pair transforms (two rows per c2c FFT) when the batch axis
-        # is even; the kernel spectrum is a compile-time constant.
-        spec = rfft_pack2(x, nfft) * jnp.fft.rfft(kernel[::-1], n=nfft)
-        full = irfft_pack2(spec, nfft).astype(x.dtype)
+        # The kernel spectrum is a compile-time constant.
+        spec = jnp.fft.rfft(x, n=nfft) * jnp.fft.rfft(kernel[::-1], n=nfft)
+        full = jnp.fft.irfft(spec, n=nfft).astype(x.dtype)
         # Linear-conv positions k-1..n-1 are alias-free because nfft >= n.
         return full[..., k - 1:n]
     batch_shape = x.shape[:-1]
@@ -357,8 +354,8 @@ def sos_impulse_response(sos: tuple, tol: float = 1e-9) -> tuple:
 
 def filtfilt_sos_conv(sos: tuple, x: jnp.ndarray,
                       tol: float = 1e-9) -> jnp.ndarray:
-    """Zero-phase IIR filtering as TWO convolutions — the TPU-native fast
-    path.  Matches scipy's filtfilt protocol up to the impulse-tail
+    """Zero-phase IIR filtering as TWO convolutions — the default
+    filtfilt path.  Matches scipy's filtfilt protocol up to the impulse-tail
     truncation O(tol):
 
       * forward pass: scipy's steady-state ``zi * ext[0]`` initial condition
@@ -369,9 +366,9 @@ def filtfilt_sos_conv(sos: tuple, x: jnp.ndarray,
         its end (``zi * y_fwd[-1]``), realized by appending L-1 samples of
         y_fwd's last value and correlating with h (= time-reversed filtering).
 
-    Each convolution is a dense MAC program XLA tiles onto the MXU, instead
-    of log-depth prefix scans over (T, 2, 2) matrices whose trailing dims
-    waste the vector lanes.
+    Each convolution is one dense multiply-accumulate program (or one FFT
+    product, see _conv_valid) instead of log-depth prefix scans over
+    (T, 2, 2) matrices.
     """
     h_np = np.asarray(sos_impulse_response(sos, tol), np.float64)
     L = h_np.shape[0]
@@ -418,7 +415,7 @@ def filtfilt_sos(sos: tuple, x: jnp.ndarray,
     steady-state initial conditions scaled by the first sample of each pass.
     Stable in float32 where the direct-form ``filtfilt`` is not.
 
-    method 'conv' (default, fastest on TPU) evaluates the whole thing as a
+    method 'conv' (default) evaluates the whole thing as a
     single truncated-impulse-response convolution; 'prefix'/'scan' run the
     exact recurrences per section."""
     if method == "conv":

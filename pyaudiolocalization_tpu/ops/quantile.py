@@ -1,14 +1,12 @@
 """Exact order statistics without sorting — bit-space bisection.
 
-``jnp.median`` sorts the whole array; on TPU a (scenes, pairs, 131072) sort
-dominates the TDOA stage.  For non-negative floats the IEEE bit pattern is
+``jnp.median`` sorts the whole array, here a (scenes, pairs, 131072)
+correlation tensor.  For non-negative floats the IEEE bit pattern is
 monotone in value, so the k-th smallest element can be found EXACTLY with a
 binary search over bit patterns — ~31 (f32) / ~63 (f64) fused
-compare-and-count passes, each a cheap VPU reduction, instead of a sort.
-(A 15-probe-per-pass radix variant was measured: per-pass cost scales with
-the probe count, so it is NOT faster — the passes are compute-bound, not
-latency-bound.  The cheap statistic for thresholds that tolerate
-approximation is models/tdoa.py's 'gaussian' scaled mean-|x|.)
+compare-and-count passes, each one reduction, instead of a sort.  (The
+cheap statistic for thresholds that tolerate approximation is
+models/tdoa.py's 'gaussian' scaled mean-|x|.)
 
 ``k`` may carry extra LEADING batch axes to resolve several order statistics
 of one array in a single search (used by the even-length median).

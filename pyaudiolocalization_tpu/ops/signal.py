@@ -1,6 +1,6 @@
 """Signal generators and amplitude processing, as pure jittable JAX ops.
 
-TPU-native counterpart of the reference's L1 layer
+Counterpart of the reference's L1 layer
 (reference: signal_processing.py:11-103).  Differences by design:
 
   * every stochastic generator takes an explicit ``jax.random`` key — the
@@ -8,7 +8,7 @@ TPU-native counterpart of the reference's L1 layer
     (signal_processing.py:13,30,56);
   * sample counts are static Python ints so generated shapes are static under
     jit;
-  * everything runs in the caller's dtype (float32 on TPU by default, float64
+  * everything runs in the caller's dtype (float32 by default, float64
     under x64 for golden tests against the SciPy oracle).
 """
 

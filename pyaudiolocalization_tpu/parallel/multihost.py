@@ -1,10 +1,10 @@
 """Multi-host (multi-process) execution — SURVEY.md §5.8's target shape.
 
 The reference is a single-process NumPy program; the rebuild's distributed
-story is JAX-native: one process per host (or per TPU slice), connected by
+story is JAX-native: one process per host, connected by
 ``jax.distributed.initialize``, with every array sharded over the GLOBAL
-device mesh and XLA inserting the cross-host collectives (psum over DCN/ICI)
-— no MPI/NCCL code of our own.
+device mesh and XLA inserting the cross-host collectives (psum) — no
+MPI/NCCL code of our own.
 
 ``initialize()`` wraps ``jax.distributed.initialize`` with environment
 fallbacks, and ``global_scene_mesh()`` builds the sweep's 1-D scene mesh
@@ -35,11 +35,11 @@ def initialize(coordinator_address: Optional[str] = None,
     """Connect this process to the JAX distributed runtime.
 
     Arguments default to the standard environment variables
-    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``)
-    so launchers can configure purely through the environment; on managed
-    TPU pods ``jax.distributed.initialize()`` auto-detects everything and
-    all three may stay None.  Safe to call once per process, before any
-    devices are used."""
+    (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``) so
+    launchers can configure purely through the environment; on clusters JAX
+    recognizes (e.g. SLURM) ``jax.distributed.initialize()`` auto-detects
+    everything and all three may stay None.  Safe to call once per process,
+    before any devices are used."""
     if coordinator_address is None:
         coordinator_address = os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None:

@@ -1,5 +1,5 @@
 """Monte-Carlo scene sweeps: thousands of simulate->localize pipelines as
-one XLA graph, sharded over a TPU mesh.
+one XLA graph, sharded over a device mesh.
 
 This subsystem has no counterpart in the reference — it is the rebuild's
 data-parallel axis (SURVEY.md §2.4 item 6, §5.8): the reference is a serial
@@ -8,7 +8,7 @@ single-scene script (main.py:335-347), so scaling it means batching *scenes*
 ``vmap`` and sharding the scene axis over ``jax.sharding.Mesh`` devices with
 ``jax.shard_map``.  The only collectives are metric reductions (``psum`` for
 RMSE/hit-rate) — there is no parameter state to synchronize in this
-workload, so everything rides ICI-friendly all-reduces over the scene axis.
+workload, so the only traffic is scalar all-reduces over the scene axis.
 
 Key entry points:
   * ``SweepSpec`` — static (hashable) scene-distribution description.
@@ -152,8 +152,7 @@ class SweepSpec:
     threshold_method: str = "gaussian"
     # GCC frequency weighting for the correlation-based solvers
     # (ops/gccphat.GCC_WEIGHTINGS minus 'ml' — single-snapshot scenes have
-    # degenerate coherence).  Non-PHAT weightings take the XLA path, not
-    # the fused Pallas kernels.
+    # degenerate coherence).
     gcc_weighting: str = "phat"
     temperature: float = 20.0
     humidity: float = 50.0
@@ -381,15 +380,6 @@ def _prefilter(spec: SweepSpec, signals: jnp.ndarray):
                                       highcut=spec.highcut), None
 
 
-def _windowed_tdoa_solvers(spec: SweepSpec) -> bool:
-    """Specs whose TDOA stage can run the windowed single-peak ladder.
-    SHARED by _estimate's windowed-GCC gate and _mono_scene_eligible —
-    keep the solver/threshold condition in ONE place so the fused/split
-    equivalence contract cannot drift when solvers are added."""
-    return (spec.solver in ("lm", "lm-robust", "de")
-            and spec.threshold_method == "gaussian")
-
-
 def _estimate(spec: SweepSpec, signals: jnp.ndarray, mics: jnp.ndarray,
               c, key: jax.Array) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """Filter -> all-pairs GCC-PHAT -> physical-lag TDOA -> clustered init ->
@@ -434,36 +424,15 @@ def _estimate(spec: SweepSpec, signals: jnp.ndarray, mics: jnp.ndarray,
         return out.position, -out.power, td
     filtered, band = _prefilter(spec, signals)
 
-    from ..ops import pallas_fft
-    # The windowed kernel has no HBM-streaming input mode, so very large
-    # M*nfft working sets must take the streaming full-correlation path.
-    use_windowed = (_windowed_tdoa_solvers(spec)
-                    and spec.gcc_weighting == "phat"
-                    and pallas_fft.bfly_gcc_eligible(
-                        spec.nfft, spec.num_mics, signals.dtype)
-                    and not pallas_fft._bfly_gcc_hbm_input(
-                        spec.nfft, spec.num_mics))
-    if use_windowed:
-        # Fully-fused TPU path: the windowed GCC kernel returns only the
-        # +-window correlation slice + global stats, so the (P, nfft)
-        # correlation never reaches HBM; the single-peak ladder then runs
-        # on the tiny slice (models/tdoa.tdoa_single_from_window).
-        wq = _tdoa_window_wq(spec)
-        win, stats = pallas_fft.bfly_gcc_windowed(
-            filtered, pi, pj, spec.nfft, wq, band=band, fs=spec.fs)
-        delays = tdoa_ops.tdoa_single_from_window(
-            win, stats, wq, spec.nfft, spec.fs, spec.max_tdoa)
-        td = -delays
-    else:
-        corr = gccphat.gcc_phat_all_pairs(filtered, pi, pj, nfft=spec.nfft,
-                                          band=band, fs=spec.fs,
-                                          weighting=spec.gcc_weighting)
-        res = tdoa_ops.time_delays_from_corr(
-            corr, spec.num_samples, spec.num_samples, spec.fs, num_peaks=1,
-            threshold_method=spec.threshold_method,
-            max_expected_delay=spec.max_tdoa, lag_mode="physical")
-        # physical peak lag -> td = arrival_j - arrival_i (models/tdoa.py).
-        td = -res.delays[..., 0]
+    corr = gccphat.gcc_phat_all_pairs(filtered, pi, pj, nfft=spec.nfft,
+                                      band=band, fs=spec.fs,
+                                      weighting=spec.gcc_weighting)
+    res = tdoa_ops.time_delays_from_corr(
+        corr, spec.num_samples, spec.num_samples, spec.fs, num_peaks=1,
+        threshold_method=spec.threshold_method,
+        max_expected_delay=spec.max_tdoa, lag_mode="physical")
+    # physical peak lag -> td = arrival_j - arrival_i (models/tdoa.py).
+    td = -res.delays[..., 0]
     weights = jnp.ones(pi.shape[0], signals.dtype)
 
     if spec.solver in ("srp", "srp+lm"):
@@ -632,8 +601,8 @@ def _simulate(spec: SweepSpec, sources, mics, c, snr_db, key: jax.Array,
     an independent signal key) before the per-mic normalize+compress."""
     # Additive white measurement noise at the per-scene SNR is part of both
     # branches (new capability — the reference simulates noiselessly
-    # outside calibration); the single-source branch fuses it into the
-    # render kernel on TPU (render_scene snr_db/noise_key).
+    # outside calibration); the single-source branch adds it inside
+    # render_scene (snr_db/noise_key).
     if spec.num_sources == 1:
         k_sig, k_noise = jax.random.split(key)
         return _render_source(spec, sources[0], mics, c, _source_freq(spec, 0),
@@ -654,90 +623,6 @@ def _simulate(spec: SweepSpec, sources, mics, c, snr_db, key: jax.Array,
     return sigs + sigma * noise
 
 
-def _fused_num_paths(spec: SweepSpec) -> int:
-    """Static path count of the dense reflection tree + direct path
-    (matches _source_paths' paths.delays.shape[1], derived from the
-    authoritative tree enumeration)."""
-    pnum = len(spec.plane_coeffs)
-    if pnum == 0 or spec.max_reflections == 0:
-        return 1
-    tree = acoustics.reflection_tree(pnum, spec.max_reflections)
-    return 1 + tree.planes.shape[0]
-
-
-def _tdoa_window_wq(spec: SweepSpec) -> int:
-    """Static sublane half-width of the TDOA lag window (covers the
-    max_expected_delay gate plus the fast path's dilation margin)."""
-    distance = int(spec.fs * 0.001)
-    half = int(np.ceil(spec.max_tdoa * spec.fs)) + 8 * max(distance, 1)
-    return min(max(-(-half // 128) + 1, 1), spec.nfft // 256)
-
-
-def _sim_est_fused(spec: SweepSpec, source, mics, c, snr_db,
-                   k_sim: jax.Array, k_est: jax.Array, dtype
-                   ) -> Tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
-    """Whole-scene fused path: ONE Pallas kernel renders the scene
-    (finalize + measurement noise included) and returns windowed
-    correlations + stats; only the tiny TDOA/solver tail runs in XLA.
-    Produces the same estimator as _simulate + _estimate: the render and
-    scene kernels draw identical per-mic noise streams for a scene key,
-    and tools/tpu_kernel_check verifies the agreement on-chip (measured
-    td diff 0.0 samples / estimate diff 0.0 m on v5e; asserted at the
-    looser <0.5 samples / <1e-3 m, so treat exact equality as observed,
-    not contractual).  Dispatched by ``run_scene`` when
-    ``_mono_scene_eligible`` holds:
-    single source, lm/lm-robust/de solver, gaussian threshold, LTI
-    prefilter (butterworth/fir — the band mask replaces it; wiener is
-    nonlinear and must really run), next_pow2(total_samples) == nfft, and
-    pallas_fft.bfly_scene_eligible(nfft, num_mics, _fused_num_paths(spec)).
-
-    History: at the round-1 all-roll stage schedule this kernel measured
-    SLOWER than the two-kernel split (106 vs 87.5 us/scene at 4 mics x
-    65536 on v5e) — grid pipelining hid the intermediate signal traffic
-    under abundant compute.  After round 3's sliced stages + MXU ramp
-    synthesis removed most of that compute, the traffic win flipped the
-    comparison: 84.3 vs 91.1 us/scene (tools/stage_ab_bench.py
-    scene_mono_vs_split), so it is now the production sweep fast path."""
-    from ..ops import pallas_fft
-    from ..ops.delay import fade_window
-    pi = np.asarray(spec.pairs[0], np.int32)
-    pj = np.asarray(spec.pairs[1], np.int32)
-    k_sig, k_noise = jax.random.split(k_sim)
-    freq = _source_freq(spec, 0)
-    base = sig_ops.generate_signal(spec.signal_type, spec.fs, spec.duration,
-                                   freq, key=k_sig, dtype=dtype)
-    paths = _source_paths(spec, source, mics, c, freq, dtype)
-    seeds = jax.lax.bitcast_convert_type(
-        jax.random.key_data(k_noise).astype(jnp.uint32), jnp.int32)
-    padded = jnp.zeros(spec.total_samples, dtype).at[
-        : base.shape[0]].set(base)
-    fade = fade_window(spec.total_samples, dtype=dtype)[: spec.num_samples]
-    wq = _tdoa_window_wq(spec)
-    win, stats = pallas_fft.bfly_scene_windowed(
-        padded, paths.delays, paths.gains, pi, pj, spec.fs, spec.nfft,
-        spec.num_samples, wq, band=(spec.lowcut, spec.highcut), fade=fade,
-        snr_db=jnp.asarray(snr_db, dtype), noise_seeds=seeds)
-    delays = tdoa_ops.tdoa_single_from_window(
-        win, stats, wq, spec.nfft, spec.fs, spec.max_tdoa)
-    td = -delays
-    weights = jnp.ones(pi.shape[0], dtype)
-    x, cost = _solve_from_td(spec, mics, pi, pj, td, c, weights, k_est)
-    return x, cost, td
-
-
-def _mono_scene_eligible(spec: SweepSpec, dtype) -> bool:
-    """Static gate for the whole-scene fused kernel (see _sim_est_fused)."""
-    from ..ops import pallas_fft
-    from ..ops.fftutils import next_pow2
-    return (spec.num_sources == 1
-            and _windowed_tdoa_solvers(spec)
-            and spec.gcc_weighting == "phat"
-            and spec.filter_method in ("butterworth", "fir")
-            and next_pow2(spec.total_samples) == spec.nfft
-            and pallas_fft.bfly_scene_eligible(
-                spec.nfft, spec.num_mics, _fused_num_paths(spec), dtype))
-
-
 def run_scene(spec: SweepSpec, key: jax.Array, dtype=jnp.float32) -> SceneResult:
     """ONE randomized simulate->localize pipeline; fully jittable, vmappable
     over keys.  This is the flagship forward step.
@@ -752,19 +637,10 @@ def run_scene(spec: SweepSpec, key: jax.Array, dtype=jnp.float32) -> SceneResult
     c = jnp.asarray(spec.speed_of_sound, dtype)
     with jax.named_scope("scene_sample"):
         sources, mics, snr_db = _random_scene(spec, k_scene, dtype)
-    if _mono_scene_eligible(spec, dtype):
-        # Whole-scene fused kernel: render + GCC in one pallas_call,
-        # same estimator and noise stream as the split path below
-        # (on-chip agreement verified by tools/tpu_kernel_check).
-        with jax.named_scope("sim_est_fused"):
-            estimate, cost, td = _sim_est_fused(spec, sources[0], mics, c,
-                                                snr_db, k_sim, k_est, dtype)
-    else:
-        with jax.named_scope("simulate"):
-            signals = _simulate(spec, sources, mics, c, snr_db, k_sim,
-                                dtype)
-        with jax.named_scope("estimate"):
-            estimate, cost, td = _estimate(spec, signals, mics, c, k_est)
+    with jax.named_scope("simulate"):
+        signals = _simulate(spec, sources, mics, c, snr_db, k_sim, dtype)
+    with jax.named_scope("estimate"):
+        estimate, cost, td = _estimate(spec, signals, mics, c, k_est)
     if spec.num_sources == 1:
         source = sources[0]
         error = jnp.linalg.norm(estimate - source)
@@ -815,8 +691,8 @@ def monte_carlo_sweep(spec: SweepSpec,
                       dtype=jnp.float32) -> SweepSummary:
     """Run ``num_scenes`` randomized scenes; with a mesh, the scene axis is
     sharded across its devices via ``jax.shard_map`` and summary statistics
-    are psum-reduced over ICI.  Per-scene results come back sharded over the
-    mesh (one gather at host access time, not inside the step)."""
+    are psum-reduced over the mesh.  Per-scene results come back sharded
+    over the mesh (one gather at host access time, not inside the step)."""
     if mesh is None:
         return _sweep_single(spec, key, num_scenes, hit_threshold, dtype)
 

@@ -1,4 +1,4 @@
-"""Typed configuration for the TPU-native localization stack.
+"""Typed configuration for the localization stack.
 
 The reference configures everything through one nested Python dict literal
 (reference: main.py:26-64) whose keys are read ad hoc with ``.get`` defaults
@@ -60,7 +60,7 @@ class LocalizationConfig:
     clustering_eps: float = 0.001
     clustering_min_samples: int = 2
     max_expected_delay: Optional[float] = None
-    # --- TPU-rebuild extensions (SURVEY.md appendix, rebuild policy) ---
+    # --- Rebuild extensions (SURVEY.md appendix, rebuild policy) ---
     # 'physical' interprets GCC-PHAT lags circularly (correct physics);
     # 'reference' reproduces the scipy-'full' index mapping defect Q1 exactly.
     lag_mode: str = "physical"
@@ -74,8 +74,8 @@ class LocalizationConfig:
     # Null-threshold resampling scheme (reference: per-draw sample
     # permutation, utils.py:183-216).  'permutation' is parity-exact;
     # 'noise' is the physical-mode surrogate (fresh length-n noise rows —
-    # distribution-equal under PHAT, tests/test_bootstrap_noise.py, and
-    # ~50x faster on TPU: no per-draw permutation sort).
+    # distribution-equal under PHAT, tests/test_bootstrap_noise.py, with
+    # no per-draw permutation sort).
     bootstrap_mode: str = "permutation"
     # PHAT whitening band (Hz): 'auto' band-limits to the noise-reduction
     # passband in physical lag mode (fixes the reference's bandpass+PHAT
@@ -84,8 +84,8 @@ class LocalizationConfig:
     # TDOA-ladder threshold statistic: None resolves to 'median' in
     # reference-parity mode (the reference's utils.py:148 statistic) and to
     # 'gaussian' in physical mode (one-pass scaled mean-|x| median estimate,
-    # same default as the sweep path — enables the fused windowed TPU fast
-    # path).  Explicit 'median'/'gaussian'/'adaptive' override either mode.
+    # same default as the sweep path).  Explicit 'median'/'gaussian'/'adaptive'
+    # override either mode.
     threshold_method: Optional[str] = None
     # Position solver (physical mode only; parity mode always runs the
     # reference's clustered-LM -> DE chain, main.py:261-298).  'lm' is the

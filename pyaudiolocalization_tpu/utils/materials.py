@@ -1,4 +1,4 @@
-"""Material property registry, TPU-native form.
+"""Material property registry in array form.
 
 The reference keeps materials as a plain dict of per-material absorption and
 frequency coefficients (reference: materials.py:3-17) that is consulted inside

@@ -1,17 +1,27 @@
 """Host-side matplotlib visualization (reference: plotting.py, the 3-D
-scatter in main.py:300-315, and calibration.py:53-72).  Matplotlib is
-imported lazily; with show_plot=False the Agg backend renders straight to
+scatter in main.py:300-315, and calibration.py:53-72).  Matplotlib is an
+optional dependency imported lazily: without it every plot is skipped with
+a warning, and with show_plot=False the Agg backend renders straight to
 file so the pipeline runs headless."""
 
 from __future__ import annotations
 
+import logging
 from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 
+logger = logging.getLogger(__name__)
+
 
 def _plt(show: bool):
-    import matplotlib
+    """matplotlib.pyplot, or None (with a warning) when it is not
+    installed."""
+    try:
+        import matplotlib
+    except ImportError:
+        logger.warning("matplotlib is not installed; skipping the plot.")
+        return None
     if not show:
         matplotlib.use("Agg", force=False)
     import matplotlib.pyplot as plt
@@ -24,6 +34,8 @@ def plot_correlation_heatmap(corr_matrix, mic_positions,
                              save_path: Optional[str] = None) -> None:
     """N x N peak-correlation heatmap (plotting.py:7-28)."""
     plt = _plt(show_plot)
+    if plt is None:
+        return
     corr_matrix = np.asarray(corr_matrix)
     num_mics = len(mic_positions)
     fig, ax = plt.subplots(figsize=(8, 6))
@@ -52,6 +64,8 @@ def plot_correlation_3d(corr_data, mic_pairs, fs,
     """One 3-D line per mic pair: lag x pair-index x correlation
     (plotting.py:30-48, including its symmetric-linspace lag axis)."""
     plt = _plt(show_plot)
+    if plt is None:
+        return
     fig = plt.figure(figsize=(10, 8))
     ax = fig.add_subplot(111, projection="3d")
     for idx, (corr, pair) in enumerate(zip(corr_data, mic_pairs)):
@@ -77,6 +91,8 @@ def plot_localization_3d(mic_positions, actual_position, estimated_position,
                          ) -> None:
     """Mics / true source / estimate scatter (main.py:300-315)."""
     plt = _plt(show_plot)
+    if plt is None:
+        return
     mic_positions = np.asarray(mic_positions)
     fig = plt.figure()
     ax = fig.add_subplot(111, projection="3d")
@@ -104,6 +120,8 @@ def plot_calibration_results(results: Sequence[dict],
                              save_path: Optional[str] = None) -> None:
     """Per-mic delay bars + amplitude line (calibration.py:53-72)."""
     plt = _plt(show_plot)
+    if plt is None:
+        return
     delays = [res["delay"] for res in results]
     amplitudes = [res["amplitude"] for res in results]
     fig, ax1 = plt.subplots(figsize=(8, 5))

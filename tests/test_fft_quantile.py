@@ -1,5 +1,5 @@
-"""Golden tests for the Bluestein transforms (ops/fftutils.py) and the
-sort-free exact order statistics (ops/quantile.py)."""
+"""Golden tests for the exact-length real transforms (ops/fftutils.py) and
+the sort-free exact order statistics (ops/quantile.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -10,16 +10,10 @@ from pyaudiolocalization_tpu.ops import fftutils as fu
 from pyaudiolocalization_tpu.ops.quantile import kth_smallest_nonneg, median_nonneg
 
 
-@pytest.fixture
-def force_bluestein(monkeypatch):
-    """On CPU the dispatcher uses the native FFT; force the chirp-z path so
-    tests exercise what the TPU runs."""
-    monkeypatch.setattr(fu, "_use_bluestein", lambda n: not fu._is_pow2(n))
-
-
 @pytest.mark.parametrize("n_in,n", [(100, 173), (50, 64), (44100, 88199),
                                     (44100, 88200), (333, 999)])
-def test_bluestein_rfft_matches_numpy(rng, force_bluestein, n_in, n):
+def test_rfft_n_matches_numpy(rng, n_in, n):
+    """Any length, including the reference's n1+n2-1 = 88199 = 89 * 991."""
     x = rng.standard_normal((3, n_in))
     got = np.asarray(fu.rfft_n(jnp.asarray(x), n))
     ref = np.fft.rfft(x, n=n)
@@ -27,15 +21,15 @@ def test_bluestein_rfft_matches_numpy(rng, force_bluestein, n_in, n):
 
 
 @pytest.mark.parametrize("n", [173, 88199, 999])
-def test_bluestein_irfft_roundtrip(rng, force_bluestein, n):
+def test_irfft_n_roundtrip(rng, n):
     x = rng.standard_normal((2, n))
     spec = jnp.asarray(np.fft.rfft(x, n=n))
     got = np.asarray(fu.irfft_n(spec, n))
     np.testing.assert_allclose(got, x, atol=1e-10)
 
 
-def test_bluestein_float32_accuracy(rng, force_bluestein):
-    """f32 chirp-z error stays ~1e-6 relative — the TPU working precision."""
+def test_rfft_n_float32_accuracy(rng):
+    """float32 at the odd parity length stays ~1e-6 relative."""
     x = rng.standard_normal(44100).astype(np.float32)
     got = np.asarray(fu.rfft_n(jnp.asarray(x), 88199))
     ref = np.fft.rfft(x.astype(np.float64), n=88199)
@@ -88,71 +82,6 @@ def test_kth_smallest_broadcast_k(rng):
     ks = np.array([1, 6, 11])
     got = np.asarray(kth_smallest_nonneg(jnp.asarray(x), jnp.asarray(ks)))
     np.testing.assert_array_equal(got, s[np.arange(3), ks - 1])
-
-
-@pytest.fixture
-def force_pack(monkeypatch):
-    monkeypatch.setattr(fu, "_pack_ok",
-                        lambda n, b: b % 2 == 0 and fu._is_pow2(n))
-
-
-@pytest.mark.parametrize("b,n_in,n", [(4, 1000, 1024), (6, 4000, 8192),
-                                      (2, 4096, 4096)])
-def test_rfft_pack2_matches_numpy(rng, force_pack, b, n_in, n):
-    x = rng.standard_normal((3, b, n_in))
-    got = np.asarray(fu.rfft_pack2(jnp.asarray(x), n))
-    np.testing.assert_allclose(got, np.fft.rfft(x, n=n), atol=1e-10)
-
-
-@pytest.mark.parametrize("b,n", [(4, 1024), (6, 8192)])
-def test_irfft_pack2_matches_numpy(rng, force_pack, b, n):
-    spec = np.fft.rfft(rng.standard_normal((2, b, n)), n=n)
-    got = np.asarray(fu.irfft_pack2(jnp.asarray(spec), n))
-    np.testing.assert_allclose(got, np.fft.irfft(spec, n=n), atol=1e-12)
-
-
-def test_pack2_fallback_paths(rng):
-    """Odd batch or non-pow2 length falls back to the plain transforms."""
-    x = rng.standard_normal((3, 5, 100))     # odd batch
-    np.testing.assert_allclose(np.asarray(fu.rfft_pack2(jnp.asarray(x), 128)),
-                               np.fft.rfft(x, n=128), atol=1e-10)
-    spec = np.fft.rfft(rng.standard_normal((5, 128)), n=128)
-    np.testing.assert_allclose(
-        np.asarray(fu.irfft_pack2(jnp.asarray(spec), 128)),
-        np.fft.irfft(spec, n=128), atol=1e-12)
-
-
-def test_irfft_pack2_discards_dc_nyquist_imag(rng, force_pack):
-    """jnp.fft.irfft ignores the imaginary parts of the DC and Nyquist bins;
-    a naive pack leaks them into the partner row (caught in review: the
-    fractional-delay phase ramp makes the Nyquist bin genuinely complex)."""
-    n = 256
-    spec = (rng.standard_normal((4, n // 2 + 1))
-            + 1j * rng.standard_normal((4, n // 2 + 1)))  # complex DC/Nyquist
-    got = np.asarray(fu.irfft_pack2(jnp.asarray(spec), n))
-    ref = np.fft.irfft(spec, n=n)
-    np.testing.assert_allclose(got, ref, atol=1e-12)
-
-
-def test_irfft_pack2_short_halfspectrum(rng, force_pack):
-    """Half-spectra shorter than n//2+1 zero-pad like jnp.fft.irfft."""
-    n = 128
-    spec = np.fft.rfft(rng.standard_normal((4, n)), n=n)[:, :40]
-    got = np.asarray(fu.irfft_pack2(jnp.asarray(spec), n))
-    ref = np.fft.irfft(spec, n=n)
-    np.testing.assert_allclose(got, ref, atol=1e-12)
-
-
-def test_pack2_nonpow2_falls_back_to_bluestein(rng, monkeypatch):
-    """Non-pow2 lengths must land on the TPU-safe exact transforms, never
-    the raw jnp.fft path (review regression: bootstrap at n1+n2-1)."""
-    calls = []
-    orig = fu.rfft_n
-    monkeypatch.setattr(fu, "rfft_n",
-                        lambda x, n: (calls.append(n), orig(x, n))[1])
-    x = rng.standard_normal((4, 100))
-    fu.rfft_pack2(jnp.asarray(x), 173)
-    assert calls == [173]
 
 
 def test_kth_stacked_k_single_search(rng):

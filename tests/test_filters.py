@@ -148,7 +148,7 @@ def test_filtfilt_sos_matches_scipy_long_signal(rng, method):
 @pytest.mark.parametrize("method", ["prefix", "scan"])
 def test_filtfilt_sos_float32_stable(rng, method):
     """float32 must stay finite and close to the f64 oracle — this is the
-    dtype the TPU path runs in."""
+    dtype the device path runs in."""
     nyq = 22050.0
     x = rng.standard_normal(44100)
     b, a = scipy.signal.butter(5, [300 / nyq, 3400 / nyq], btype="band")

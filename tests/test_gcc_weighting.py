@@ -44,7 +44,7 @@ def test_all_pairs_weighting_matches_two_signal_form(rng, weighting):
     pj = np.array([1, 2, 3, 3], np.int32)
     nfft = 2048
     got = np.asarray(gccphat.gcc_phat_all_pairs(
-        sigs, pi, pj, nfft=nfft, weighting=weighting, use_pallas="never"))
+        sigs, pi, pj, nfft=nfft, weighting=weighting))
     for k, (i, j) in enumerate(zip(pi, pj)):
         ref = np.asarray(gccphat.phat_correlation(
             sigs[i], sigs[j], nfft=nfft, weighting=weighting))

@@ -205,85 +205,6 @@ def test_physical_nfft_alias_guard():
 
 
 # ---------------------------------------------------------------------------
-# Fused windowed fast path behind localize_sound_source (api._estimation_core_fast)
-# ---------------------------------------------------------------------------
-
-def _fast_vs_slow(filter_method, key=11):
-    """Run the same injected-signal scene through the fused windowed core
-    (Pallas interpret mode on CPU) and the full-correlation core, both with
-    the physical-mode 'gaussian' threshold; return the two results."""
-    from pyaudiolocalization_tpu import api
-
-    cfg = small_config(lag_mode="physical", sync_mode="none",
-                       filter_method=filter_method, max_expected_delay=0.05)
-    cfg["signal_type"] = "noise"
-    cfg["source_position"] = [0.7, 0.3, 0.55]
-    scene = pal.SceneConfig.from_dict(cfg)
-    c = 343.0
-    sigs = pal.simulate_signals_with_multipath(
-        scene.source_position, scene.mic_positions, scene.fs, c,
-        duration=scene.duration, signal_type="noise",
-        key=jax.random.PRNGKey(key), dtype=jnp.float32)
-
-    def run():
-        return pal.localize_sound_source(
-            cfg, use_simulation=False, show_plots=False, signals=sigs,
-            key=jax.random.PRNGKey(3), dtype=jnp.float32)
-
-    assert not api._FAST_INTERPRET
-    api._FAST_INTERPRET = True
-    try:
-        scene_cfg = pal.SceneConfig.from_dict(cfg)
-        assert api._fast_path_eligible(
-            scene_cfg.localization, 4096, scene_cfg.num_mics, jnp.float32,
-            scene_cfg.fs), \
-            "test scene must dispatch the fast path"
-        fast = run()
-    finally:
-        api._FAST_INTERPRET = False
-    slow = run()
-    return fast, slow
-
-
-def test_fast_path_matches_full_core_wiener():
-    """Same nonlinear front-end on both paths: the only difference is the
-    windowed Pallas kernel + collapsed ladder vs the XLA FFT + full ladder,
-    so TDOAs and the estimate must agree to float32 kernel tolerance."""
-    fast, slow = _fast_vs_slow("wiener")
-    np.testing.assert_allclose(fast["tdoas"], slow["tdoas"],
-                               rtol=0, atol=1e-6)
-    np.testing.assert_allclose(fast["estimated_position"],
-                               slow["estimated_position"], rtol=0, atol=1e-4)
-
-
-def test_fast_path_matches_full_core_butterworth():
-    """LTI front-end: the fast path skips the time-domain filtfilt (PHAT
-    cancels |H|² in-band; band-limited whitening zeroes the rest), so the
-    correlations differ at the ~1% level with identical peak structure —
-    the ESTIMATES must still agree at sub-mm level."""
-    fast, slow = _fast_vs_slow("butterworth")
-    assert np.linalg.norm(np.asarray(fast["estimated_position"])
-                          - np.asarray(slow["estimated_position"])) < 1e-3
-    # Same winning peaks: TDOAs agree to a fraction of a sample.
-    np.testing.assert_allclose(fast["tdoas"], slow["tdoas"],
-                               rtol=0, atol=0.25 / 8000.0)
-
-
-def test_fast_path_not_dispatched_in_parity_or_analyze_modes():
-    from pyaudiolocalization_tpu import api
-    loc_parity = pal.LocalizationConfig(lag_mode="reference")
-    assert not api._fast_path_eligible(loc_parity, 4096, 4, jnp.float32, 8000.0)
-    loc_analyze = pal.LocalizationConfig(
-        lag_mode="physical", max_expected_delay=0.05,
-        analyze_correlation=True)
-    assert not api._fast_path_eligible(loc_analyze, 4096, 4, jnp.float32, 8000.0)
-    # CPU backend without the interpret hook: never eligible.
-    loc_ok = pal.LocalizationConfig(lag_mode="physical",
-                                    max_expected_delay=0.05)
-    assert not api._fast_path_eligible(loc_ok, 4096, 4, jnp.float32, 8000.0)
-
-
-# ---------------------------------------------------------------------------
 # Public solver selection (config['localization']['solver'], VERDICT r2 item 2)
 # ---------------------------------------------------------------------------
 
